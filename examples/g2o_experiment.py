@@ -77,8 +77,7 @@ def main():
     ap.add_argument("--out", default=None, help="write results JSON here")
     ap.add_argument("--cpu", action="store_true",
                     help="force the CPU backend (must be set before any "
-                         "device op; the JAX_PLATFORMS env var is not "
-                         "reliable under external TPU plugins)")
+                         "device op)")
     args = ap.parse_args()
 
     if args.cpu:

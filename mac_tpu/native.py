@@ -7,9 +7,11 @@ Native pieces (built from native/ with `make -C native`):
     host-sequential inner loop of GreedyESP (reference equivalent drives
     CHOLMOD updates from Python, mac/solvers/greedy_esp.py:183-268).
 
-Everything degrades gracefully: `lib()` returns None when the shared
-library hasn't been built and callers fall back to pure Python/numpy.
-Set MAC_TPU_NO_NATIVE=1 to force the fallback.
+`lib()` runs `make -C native` once per process before loading, so the
+library is always (re)built from the committed sources on the machine that
+loads it; make is a no-op when it is up to date. Everything degrades
+gracefully: `lib()` returns None when the build fails and callers fall
+back to pure Python/numpy. Set MAC_TPU_NO_NATIVE=1 to force the fallback.
 """
 
 import ctypes
@@ -27,20 +29,26 @@ _tried = False
 
 
 def build(quiet: bool = True) -> bool:
-    """Build the shared library in-tree; returns success."""
+    """Build (or confirm up to date) the shared library in-tree; returns
+    success. Serialized across processes by a file lock, so concurrent
+    first uses (parallel test workers) never load a half-linked file."""
+    import fcntl
+
     try:
-        subprocess.run(
-            ["make", "-C", str(_NATIVE_DIR)],
-            check=True,
-            capture_output=quiet,
-        )
+        with open(_NATIVE_DIR / ".build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(
+                ["make", "-C", str(_NATIVE_DIR)],
+                check=True,
+                capture_output=quiet,
+            )
         return _SO.exists()
     except Exception:
         return False
 
 
 def lib() -> Optional[ctypes.CDLL]:
-    """Load (building on first use if necessary) the native library."""
+    """Build on first use in this process, then load the native library."""
     global _lib, _tried
     if _lib is not None:
         return _lib
@@ -49,7 +57,7 @@ def lib() -> Optional[ctypes.CDLL]:
     _tried = True
     if os.environ.get("MAC_TPU_NO_NATIVE"):
         return None
-    if not _SO.exists() and not build():
+    if not build():
         return None
     try:
         L = ctypes.CDLL(str(_SO))

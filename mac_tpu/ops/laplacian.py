@@ -1,20 +1,20 @@
-"""Matrix-free weighted-Laplacian operators for TPU.
+"""Matrix-free weighted-Laplacian operators for the accelerator.
 
 The graph Laplacian L(w) = sum_e w_e (e_i - e_j)(e_i - e_j)^T is never
 materialized as a sparse matrix on device. Two apply paths:
 
   * ``dense``: materialize L(w) as an (n, n) dense array (one cheap
-    scatter-add per weight update) and apply it with MXU matmuls. Chosen for
-    small graphs where (n, n) fits comfortably in HBM/VMEM.
+    scatter-add per weight update) and apply it with matmuls. Chosen for
+    small graphs where (n, n) fits comfortably in device memory.
 
   * ``ell``: a padded-adjacency (ELLPACK) gather formulation. For each node
     we store a fixed-width table of (neighbor, edge-id); then
 
         (L(w) V)_i = (sum_k w_ik) V_i - sum_k w_ik V_{nbr_ik}
 
-    which is pure gathers + VPU reductions — no scatter in the hot loop.
-    Scatters are notoriously slow on TPU; gathers along the leading axis
-    vectorize well. The tables are static per graph topology; only the
+    which is pure gathers + reductions — no scatter in the hot loop
+    (scatter-adds serialize on colliding indices; gathers along the
+    leading axis vectorize well). The tables are static per graph topology; only the
     weight vector changes across Frank-Wolfe iterations.
 
 This replaces the reference's per-iteration scipy COO->CSR assembly

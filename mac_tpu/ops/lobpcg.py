@@ -2,7 +2,7 @@
 
 This owns the role the reference delegates to NetworkX's private
 `_tracemin_fiedler` with SuperLU/CHOLMOD inner solves (reference:
-mac/utils/fiedler.py:42, mac/utils/cholesky.py:137-240). The TPU-native
+mac/utils/fiedler.py:42, mac/utils/cholesky.py:137-240). The device
 design differs structurally:
 
   * Nullspace handling: rather than repeatedly projecting onto 1^perp (the
@@ -66,7 +66,7 @@ def _hi(x: jax.Array) -> jax.Array:
     """Upcast to float64 for coefficient-level algebra.
 
     Mixed-precision policy: all O(n)-sized blocks stay in the compute dtype
-    (float32 on TPU — bandwidth and MXU throughput), but the small Gram /
+    (float32 on accelerators — memory bandwidth), but the small Gram /
     Cholesky / eigh coefficient problems run in float64. In float32 these
     coefficient problems carry absolute noise at eps * ||Gram|| which rivals
     eigenvalue gaps and floors eigensolver convergence around 1e-2 (measured
@@ -79,9 +79,8 @@ def _hi(x: jax.Array) -> jax.Array:
 def _gram(A: jax.Array, B: jax.Array, coeff_dtype) -> jax.Array:
     """A^T B at coefficient precision: emulated float64 matmuls when
     coeff_dtype is float64 (the safe default — see _hi), else the compute
-    dtype with 3-pass (exact-f32) MXU accumulation. The f32 option is ~8x
-    cheaper on TPU (measured: the f64 Rayleigh-Ritz step costs 4.1 ms vs
-    0.5 ms) at ~sqrt(n)*eps_f32 Gram accumulation noise — acceptable for
+    dtype with exact-f32 (HIGHEST precision) accumulation. The f32 option
+    is the cheaper one at ~sqrt(n)*eps_f32 Gram accumulation noise — acceptable for
     TRACEMIN, whose basis spans only low eigenmodes (||H|| ~ lambda_{3q})."""
     if coeff_dtype == jnp.float64:
         return _hi(A).T @ _hi(B)
@@ -91,7 +90,7 @@ def _gram(A: jax.Array, B: jax.Array, coeff_dtype) -> jax.Array:
 def _cholqr(S: jax.Array, coeff_dtype=jnp.float64) -> jax.Array:
     """One CholeskyQR pass: Q = S @ chol(S^T S + jitter)^-1.
 
-    MXU-friendly (one Gram matmul + tiny Cholesky + triangular solve)
+    Matmul-shaped (one Gram matmul + tiny Cholesky + triangular solve)
     and far cheaper to compile and run than Householder QR. The Gram and
     the inverse-factor coefficients are computed at coeff_dtype (see
     _gram); only the final (n, k) @ (k, k) application runs in the compute
@@ -200,7 +199,7 @@ def lobpcg_fiedler(
         r = AX[:, 0] - lam[0] * X[:, 0]
         return jnp.sum(jnp.abs(r)) / lnorm.astype(dtype)
 
-    # Stall detection: in low precision (f32 on TPU) the residual hits a
+    # Stall detection: in low precision (f32) the residual hits a
     # rounding floor above any fixed tolerance; stop when it hasn't
     # improved for STALL_PATIENCE iterations instead of burning maxiter.
     STALL_PATIENCE = 8
@@ -278,7 +277,7 @@ def tracemin_fiedler(
     lam0 / warm_init: warm-entry protocol. When lam0 (a (q,) Ritz-value
     vector matching X0) is provided, the traced boolean `warm_init`
     selects between the full cold entry (orthonormalize X0 + initial
-    Rayleigh-Ritz, ~0.6 ms of latency-bound small ops at n=1e4) and the
+    Rayleigh-Ritz, a chain of latency-bound small ops) and the
     warm entry that TRUSTS X0 to be the Ritz-ordered orthonormal block a
     previous call returned — one operator apply replaces the whole init.
     Frank-Wolfe threads (X, lam) across steps so every warm step takes
@@ -303,7 +302,7 @@ def tracemin_fiedler(
     eps = jnp.finfo(dtype).eps
     # Coefficient-algebra dtype for the Gram/CholQR/Ritz problems (the
     # O(n)-block work always stays in `dtype`): float64 by default — the
-    # measured-safe choice — float32 as the fast TPU option (see _gram).
+    # measured-safe choice — float32 as the fast option (see _gram).
     if coeff_dtype is None:
         coeff_dtype = jnp.float64
     # Requested tolerances below the precision floor are clamped so the

@@ -3,12 +3,12 @@
 The reference library accelerates its inner solves with exact sparse
 factorizations (SuperLU via NetworkX, CHOLMOD via scikit-sparse —
 reference: mac/utils/fiedler.py:42, mac/utils/cholesky.py:107-134). Sparse
-direct factorization does not map to TPU; instead we exploit problem
-structure:
+direct factorization does not map to a jitted device loop; instead we
+exploit problem structure:
 
   * ``chain``: in pose-graph SLAM the fixed subgraph is the odometry chain —
     a path graph, whose Laplacian is tridiagonal and whose (pseudo-)inverse
-    applies in O(n) via two parallel prefix sums (log-depth scans on TPU).
+    applies in O(n) via two parallel prefix sums (log-depth scans).
     This is an exact solve on the spanning-tree part of L(x) — a
     Vaidya-style spanning-tree preconditioner that removes the O(n^2)
     condition number of the chain.

@@ -1,6 +1,6 @@
 """Parallel symmetric tridiagonal solver via associative scans.
 
-This is the TPU-native stand-in for a sparse direct factorization: the
+This is the accelerator stand-in for a sparse direct factorization: the
 tridiagonal part of a pose-graph Laplacian (full diagonal + the odometry
 chain's off-diagonals) captures most of its ill-conditioning, and an SPD
 tridiagonal system solves in O(log n) depth with three
@@ -19,13 +19,10 @@ mac/utils/fiedler.py:42) as the preconditioner backbone for the eigensolver
 and CG (see mac_tpu.ops.lobpcg / mac_tpu.ops.cg).
 """
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
-
-
-FORCE_SCAN = False  # see tridiag_solve_factored_fast
 
 
 class TridiagFactor:
@@ -34,11 +31,9 @@ class TridiagFactor:
 
     `seg` records how the factor was produced: None = exact factorization
     (tridiag_ldl); an integer = segment-decoupled approximate factor with
-    couplings zeroed at every `seg` boundary (tridiag_ldl_blocked). Solvers
-    use it to decide which fused kernels are VALID for this factor rather
-    than inferring from n (a caller passing an exact factor at large n must
-    never be routed through a segment-decoupling kernel). `seg` is pytree
-    aux data (static), so it participates in jit cache keys, not tracing."""
+    couplings zeroed at every `seg` boundary (tridiag_ldl_blocked). `seg`
+    is pytree aux data (static), so it participates in jit cache keys, not
+    tracing."""
 
     __slots__ = ("dp", "l", "seg")
 
@@ -84,10 +79,10 @@ def tridiag_ldl(d: jax.Array, e: jax.Array) -> TridiagFactor:
 
     The scan always runs in float64 and the factor is returned in the input
     dtype: the projective (Moebius) composition spans a wide dynamic range,
-    and on TPU (flush-to-zero float32) it was observed to produce
-    non-finite pivots on real pose-graph weight scales where the identical
-    float32 computation on CPU stays finite. The factorization runs once
-    per weight vector — the float64 cost is negligible next to the solves.
+    and a float32 scan (especially with denormals flushed to zero) can
+    produce non-finite pivots on real pose-graph weight scales. The
+    factorization runs once per weight vector — the float64 cost is
+    negligible next to the solves.
     """
     out_dtype = d.dtype
     d = d.astype(jnp.float64)
@@ -123,11 +118,11 @@ def tridiag_ldl_blocked(d: jax.Array, e: jax.Array,
     *preconditioner*, and a two-grid coarse level owns the global modes).
 
     Why this exists: `tridiag_ldl`'s associative scan unrolls log2(n)
-    stages of large slices, which stalls the remote XLA compile beyond
-    n ~ 3e4 (BASELINE.md round-1). Here the recurrence runs as ONE rolled
-    `lax.scan` of length `block`, vectorized across the n/block segments —
-    compile size is independent of n. Runs in float64 like tridiag_ldl
-    (same flush-to-zero rationale; the scan state is tiny).
+    stages of large slices, so its compile time grows with n. Here the
+    recurrence runs as ONE rolled `lax.scan` of length `block`, vectorized
+    across the n/block segments — compile size is independent of n. Runs
+    in float64 like tridiag_ldl (same dynamic-range rationale; the scan
+    state is tiny).
     """
     out_dtype = d.dtype
     n = d.shape[0]
@@ -163,7 +158,7 @@ def tridiag_ldl_blocked(d: jax.Array, e: jax.Array,
 
 
 # Beyond this size the associative-scan factorization's unrolled stages
-# stall the (remote) XLA compile; use the blocked variant.
+# make compiles slow; use the blocked variant.
 TRIDIAG_SCAN_MAX_N = 32768
 
 
@@ -176,97 +171,27 @@ def tridiag_ldl_auto(d: jax.Array, e: jax.Array) -> TridiagFactor:
 
 
 def tridiag_solve_factored(f: TridiagFactor, B: jax.Array) -> jax.Array:
-    """Solve T X = B given the LDL^T factor; B is (n, q)."""
-    l = f.l[:, None]
-    # Forward: y_i = b_i - l_i y_{i-1}.
-    coef = jnp.broadcast_to(-l, B.shape)
-    _, y = jax.lax.associative_scan(_affine_combine, (coef, B), axis=0)
-    z = y / f.dp[:, None]
-    # Backward: x_i = z_i - l_{i+1} x_{i+1}: reverse affine scan.
-    lr = jnp.concatenate([-f.l[1:], jnp.zeros((1,), f.l.dtype)])[:, None]
-    coef_r = jnp.broadcast_to(lr, B.shape)[::-1]
-    _, xr = jax.lax.associative_scan(_affine_combine, (coef_r, z[::-1]), axis=0)
-    return xr[::-1]
+    """Solve T X = B given the LDL^T factor; B is (n, q).
+
+    Two affine associative scans (forward on L, backward on L^T): O(log n)
+    depth, vmaps natively, any dtype. This sits in the eigensolver's
+    innermost loop (the chain smoother of every preconditioned CG step);
+    its device time is read from profiler traces under the "chain_solve"
+    scope."""
+    with jax.named_scope("chain_solve"):
+        l = f.l[:, None]
+        # Forward: y_i = b_i - l_i y_{i-1}.
+        coef = jnp.broadcast_to(-l, B.shape)
+        _, y = jax.lax.associative_scan(_affine_combine, (coef, B), axis=0)
+        z = y / f.dp[:, None]
+        # Backward: x_i = z_i - l_{i+1} x_{i+1}: reverse affine scan.
+        lr = jnp.concatenate([-f.l[1:], jnp.zeros((1,), f.l.dtype)])[:, None]
+        coef_r = jnp.broadcast_to(lr, B.shape)[::-1]
+        _, xr = jax.lax.associative_scan(
+            _affine_combine, (coef_r, z[::-1]), axis=0)
+        return xr[::-1]
 
 
 def tridiag_solve(d: jax.Array, e: jax.Array, B: jax.Array) -> jax.Array:
     """Solve the SPD tridiagonal system (diag d, off-diag e) against (n, q)."""
     return tridiag_solve_factored(tridiag_ldl(d, e), B)
-
-
-@jax.custom_batching.custom_vmap
-def _fused_solve_whole(dp: jax.Array, l: jax.Array, B: jax.Array) -> jax.Array:
-    from mac_tpu.ops.pallas.tridiag_kernel import tridiag_solve_fused
-
-    return tridiag_solve_fused(dp, l, B)
-
-
-@jax.custom_batching.custom_vmap
-def _fused_solve_blocked(dp: jax.Array, l: jax.Array, B: jax.Array) -> jax.Array:
-    from mac_tpu.ops.pallas.tridiag_kernel import tridiag_solve_fused_blocked
-
-    return tridiag_solve_fused_blocked(dp, l, B, block=1024)
-
-
-def _scan_solve_batch_rule(axis_size, in_batched, dp, l, B):
-    """Batched (vmapped) fused solves fall back to the associative-scan
-    path: Mosaic cannot lower the Pallas kernel under vmap's loop batching
-    ('failed to legalize func.return', observed when solve_sweep vmapped
-    the banded preconditioner), and the scan path vmaps natively."""
-    bd, bl, bB = in_batched
-    fn = lambda d_, l_, B_: tridiag_solve_factored(TridiagFactor(d_, l_), B_)
-    out = jax.vmap(fn, in_axes=(0 if bd else None, 0 if bl else None,
-                                0 if bB else None))(dp, l, B)
-    return out, True
-
-
-_fused_solve_whole.def_vmap(_scan_solve_batch_rule)
-_fused_solve_blocked.def_vmap(_scan_solve_batch_rule)
-
-
-def tridiag_solve_factored_fast(f: TridiagFactor, B: jax.Array) -> jax.Array:
-    """Backend-dispatched solve: the fused Pallas kernel on TPU (one kernel
-    instead of ~30 scan stages — this sits in the eigensolver's innermost
-    loop), the associative-scan path elsewhere. float64 blocks (automatic
-    precision escalation) stay on the scan path: TPU XLA cannot rewrite
-    x64 types through a Pallas custom call. Under vmap (budget sweeps) the
-    kernels fall back to the scan path via a custom_vmap rule.
-
-    FORCE_SCAN (module flag, read at trace time) pins the scan path
-    everywhere — an A/B instrument for the layout-copy question: the
-    round-5 city10000 trace shows ~12 XLA `copy` ops (~47 us) per inner-CG
-    iteration bracketing the two Pallas custom calls (XLA cannot relayout
-    through a custom call), ~10x the kernels' own 2 x 4.9 us compute."""
-    if FORCE_SCAN:
-        return tridiag_solve_factored(f, B)
-    # Narrow blocks only: the kernel holds the whole (q_pad, n_pad) block in
-    # VMEM, which is right for eigensolver blocks (q <= ~16) but OOMs for
-    # the wide multi-RHS chunks of GreedyESP's batched solves.
-    if (
-        jax.default_backend() == "tpu"
-        and B.dtype == jnp.float32
-        and B.shape[1] <= 32
-    ):
-        n, q = B.shape
-        if n <= TRIDIAG_SCAN_MAX_N:
-            return _fused_solve_whole(
-                f.dp.astype(B.dtype), f.l.astype(B.dtype), B)
-        # Beyond the whole-row kernel's VMEM budget (measured OOM at
-        # n = 1e5): segment-decoupled variant. Valid ONLY for factors that
-        # are already segment-decoupled at 1024 boundaries (f.seg recorded
-        # at factorization time divides 1024) — an exact factor must never
-        # be routed through the decoupling kernel, which would silently
-        # zero its couplings (ADVICE r2 #3).
-        # VMEM is n-independent since the kernel grids over 256-row
-        # chunks (tridiag_solve_fused_blocked), so the only requirement
-        # is a factor already segment-decoupled at 1024 boundaries. (The
-        # old whole-stack-in-VMEM 12 MB bound silently disabled the
-        # kernel for every n >= ~1e5, leaving the chain preconditioner on
-        # the ~30-stage scan path: 55.7 ms/solve at n=3e5, TPU-measured.)
-        if (
-            f.seg is not None
-            and 1024 % int(f.seg) == 0
-        ):
-            return _fused_solve_blocked(
-                f.dp.astype(B.dtype), f.l.astype(B.dtype), B)
-    return tridiag_solve_factored(f, B)

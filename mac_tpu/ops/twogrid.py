@@ -11,8 +11,8 @@ inverse iteration. The classic remedy is a coarse-grid correction:
     contiguous aggregation is natural) into nc = ceil(n/s) supernodes with
     piecewise-constant prolongation P (restriction = reshape + sum: free).
   * The coarse operator Lc = P^T L(w) P is an (nc, nc) *dense* Laplacian —
-    assembled by one scatter-add over coarse edge endpoints and inverted
-    once per weight vector on the MXU (regularized by the same rank-one
+    assembled by chunked one-hot matmuls over coarse edge endpoints and
+    inverted once per weight vector (regularized by the same rank-one
     constant-mode shift used in the eigensolver).
   * One V-cycle: pre-smooth (tridiag), coarse-correct, post-smooth.
 
@@ -22,8 +22,8 @@ algebra — see mac_tpu.ops.lobpcg._hi) and applied in the compute dtype.
 
 This plays the role of the reference's sparse direct factorizations
 (CHOLMOD/SuperLU, reference mac/utils/cholesky.py) at preconditioner
-accuracy: global information travels through a dense MXU solve instead of
-a sparse triangular solve.
+accuracy: global information travels through a dense matmul solve instead
+of a sparse triangular solve.
 """
 
 from typing import Callable
@@ -32,7 +32,7 @@ import jax
 import jax.numpy as jnp
 
 from mac_tpu.ops.laplacian import GraphOperator, lap_tridiagonal_part
-from mac_tpu.ops.tridiag import tridiag_ldl_auto, tridiag_solve_factored_fast
+from mac_tpu.ops.tridiag import tridiag_ldl_auto, tridiag_solve_factored
 
 
 def make_twogrid_precond(
@@ -57,13 +57,11 @@ def make_twogrid_precond(
 
     # Coarse operator: Lc = sum_e w_e (p_i - p_j)(p_i - p_j)^T over coarse
     # endpoints; edges interior to an aggregate vanish (p_i == p_j).
-    # Assembled as Ec^T diag(w) Ec via a lax.scan of chunked one-hot MXU
-    # matmuls, NOT a scatter-add: TPU scatters run ~0.33 us/element, so
-    # the previous 4m-element .at[].add cost ~0.6 s PER preconditioner
-    # build at n=3e5 (m=4.5e5) — rebuilt every FW step. The chunked
-    # incidence is built by iota-compare (no gather/scatter at all) and
-    # each (nc, CH) @ (CH, nc) product runs on the MXU; f32 HIGHEST
-    # accumulation, escalated to f64 only for the factorization.
+    # Assembled as Ec^T diag(w) Ec via a lax.scan of chunked one-hot
+    # matmuls rather than a 4m-element scatter-add (rebuilt every FW step).
+    # The chunked incidence is built by iota-compare (no gather/scatter at
+    # all); f32 HIGHEST accumulation, escalated to f64 only for the
+    # factorization.
     ci, cj = op.coarse_idx[:, 0], op.coarse_idx[:, 1]
     m = w.shape[0]
     CH = 4096
@@ -93,13 +91,26 @@ def make_twogrid_precond(
     # eigensolver); inverse computed once, in float64, applied in dtype.
     cshift = 2.0 * jnp.max(jnp.diag(Lc)) + 1.0
     Lc_reg = Lc + (cshift / nc) * jnp.ones((nc, nc), dtype=jnp.float64)
-    # Cholesky-based inverse: TPU XLA implements f64 Cholesky/triangular
-    # solves but not f64 LU (jnp.linalg.inv fails to compile).
-    Rc = jnp.linalg.cholesky(Lc_reg, upper=True)
-    Rc_inv = jax.scipy.linalg.solve_triangular(
-        Rc, jnp.eye(nc, dtype=jnp.float64), lower=False
-    )
-    Lc_inv = (Rc_inv @ Rc_inv.T).astype(dtype)
+
+    def _chol_inverse(A):
+        Rc = jnp.linalg.cholesky(A, upper=True)
+        Rc_inv = jax.scipy.linalg.solve_triangular(
+            Rc, jnp.eye(nc, dtype=jnp.float64), lower=False
+        )
+        return Rc_inv @ Rc_inv.T
+
+    # The constant shift removes only ONE zero eigenvalue. On a graph
+    # with several connected components Lc keeps a zero eigenvalue per
+    # extra component, and the f32-accumulated assembly can round it
+    # negative: the Cholesky then returns NaN and poisons every solve.
+    # Only in that case, retry with a 1% diagonal inflation (harmless in
+    # a preconditioner); connected graphs keep the exact coarse inverse.
+    Lc_inv = _chol_inverse(Lc_reg)
+    jit_c = 1e-2 * jnp.trace(Lc_reg) / nc
+    Lc_inv = jax.lax.cond(
+        jnp.all(jnp.isfinite(Lc_inv)), lambda _: Lc_inv,
+        lambda _: _chol_inverse(Lc_reg + jit_c * jnp.eye(nc, dtype=jnp.float64)),
+        None).astype(dtype)
 
     pad = nc * s - n
 
@@ -107,7 +118,7 @@ def make_twogrid_precond(
         return B - jnp.mean(B, axis=0, keepdims=True)
 
     def smooth(B):
-        return tridiag_solve_factored_fast(fac, B)
+        return tridiag_solve_factored(fac, B)
 
     def restrict(R):  # (n, q) -> (nc, q): sum within aggregates
         if pad:

@@ -2,11 +2,11 @@
 
 The reference has no distributed code of any form (SURVEY.md §2.3); the
 scale axes for this problem are graph size (nodes n, candidate edges m) and
-sweep width (budgets K, rounding trials). The TPU-native mapping:
+sweep width (budgets K, rounding trials). The device mapping:
 
   * 'graph' axis: shard the node dimension of the eigenvector block and the
     row-blocks of the ELL adjacency tables; Laplacian products compute on
-    row shards, inner products reduce with `psum` over ICI.
+    row shards, inner products reduce with `psum` across devices.
   * 'sweep' axis: embarrassingly parallel budget sweeps / Madow rounding
     trials / datasets (data-parallel analogue).
 

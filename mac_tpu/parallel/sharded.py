@@ -6,7 +6,7 @@ Sharding design (SURVEY.md §5 'distributed communication backend'):
     'graph' mesh axis; the eigenvector block V (n, q) stays replicated
     (it is tiny relative to the tables for large n). Each device computes
     the output rows of L(w) @ V for its block — pure local gathers — and
-    an `all_gather` over ICI re-replicates the result. No scatter, no
+    an `all_gather` across devices re-replicates the result. No scatter, no
     psum on the hot path.
   * Weight vectors are replicated (m is modest); the per-candidate
     gradient is computed replicated.
@@ -86,7 +86,7 @@ class ShardedLaplacian:
 
 
 class EdgeShardedLaplacian:
-    """Edge-sharded L(w) products combined with `psum` over ICI — the
+    """Edge-sharded L(w) products combined with `psum` across devices — the
     SURVEY §5 'distributed communication backend' design (the row-sharded
     ShardedLaplacian above all-gathers its output instead).
 
@@ -95,7 +95,7 @@ class EdgeShardedLaplacian:
     ELL tables, difference form) and the full product is one
     `lax.psum("graph")`. The weight vector and V stay replicated. Scales
     the edge dimension: per-device gather work is m/g edges; the collective
-    moves (n, q) floats over ICI.
+    moves (n, q) floats between devices.
     """
 
     def __init__(self, op: GraphOperator, mesh: Mesh):

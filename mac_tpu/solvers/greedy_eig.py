@@ -3,11 +3,11 @@
 At each of k steps, add the candidate edge whose inclusion maximizes the
 algebraic connectivity (reference: mac/solvers/greedy_eig.py:86-155).
 
-TPU-native redesign: the reference evaluates candidates one at a time with
+Accelerator redesign: the reference evaluates candidates one at a time with
 incremental Cholesky up/downdates of a CHOLMOD factor (greedy_eig.py:
 131-134) and prunes serially with the supergradient bound
-lambda_2(L + e_j) <= lambda_2 + grad_j (greedy_eig.py:119-122). On TPU the
-economical shape is the opposite: *batch* the trial evaluations — a
+lambda_2(L + e_j) <= lambda_2 + grad_j (greedy_eig.py:119-122). On an
+accelerator the economical shape is the opposite: *batch* the trial evaluations — a
 chunked `vmap` of the Fiedler solve over candidate weight vectors, each
 warm-started from the current eigenvector block — and use the same
 supergradient bound as a branch-&-bound filter to skip whole chunks.

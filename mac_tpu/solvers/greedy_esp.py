@@ -5,10 +5,10 @@ candidate edge with the largest *weighted effective resistance*
 r_e = w_e a_e^T L_S^-1 a_e against the currently-selected graph
 (k-ESP+, Khosoussi et al. 2016; reference: mac/solvers/greedy_esp.py).
 
-TPU-native redesign — the reference's machinery is a CHOLMOD factorization
+Accelerator redesign — the reference's machinery is a CHOLMOD factorization
 plus per-edge forward solves and rank-1 factor updates (greedy_esp.py:
 122-137, 307-325, 259-261 + mac/utils/cholesky.py:7-51, 87-105). None of
-that maps to TPU. Instead, everything is derived from one device-batched
+that maps to a jitted device program. Instead, everything is derived from one device-batched
 solve via the Woodbury identity:
 
     Z = L_fixed^-1 A          (multi-RHS batched solves, chunked)
@@ -46,8 +46,8 @@ the fixed graph equals its tridiagonal part, else preconditioned CG to
 differences), so no (n, chunk) host arrays cross the interconnect.
 
 Selection path: above SCAN_MIN_WORK candidate*budget entries the greedy
-runs as ONE jitted `lax.scan` on the accelerator (one (k,)@(k, m) MXU
-product per selection — see _select_scan_device); below it, the native
+runs as ONE jitted `lax.scan` on the accelerator (one (k,)@(k, m) matmul
+per selection — see _select_scan_device); below it, the native
 C++ lazy-greedy core, then a pure-numpy loop as last resort.
 
 Numerically exact up to the solve tolerance: Woodbury is an identity; the
@@ -74,7 +74,7 @@ from mac_tpu.ops.laplacian import (
     lap_apply_reduced,
     lap_tridiagonal_part,
 )
-from mac_tpu.ops.tridiag import tridiag_ldl_auto, tridiag_solve_factored_fast
+from mac_tpu.ops.tridiag import tridiag_ldl_auto, tridiag_solve_factored
 from mac_tpu.utils.graphs import Edge, edges_to_arrays
 
 # Beyond this many candidates the solve matrix Z transfers and is stored
@@ -157,8 +157,8 @@ class GreedyESP:
             # float64 regardless of backend: the greedy selection consumes
             # effective resistances at 1e-10 relative accuracy, unreachable
             # in float32 (a f32 default silently burned cg_maxiter per chunk
-            # and carried f32-level error). The batched CG ops all exist in
-            # TPU f64 (emulated); the selection itself is host-sequential.
+            # and carried f32-level error). The selection itself is
+            # host-sequential.
             dtype = jnp.float64
         self.dtype = dtype
         self._op_fixed = build_operator(fixed_idx, self.num_nodes)
@@ -217,14 +217,14 @@ class GreedyESP:
             # treated as a direct solve — fall through to CG below, where
             # the factor is exactly what a preconditioner should be.
             fac = tridiag_ldl_auto(d[1:], e[1:])
-            sol = tridiag_solve_factored_fast(fac, B[1:, :])
+            sol = tridiag_solve_factored(fac, B[1:, :])
             return jnp.concatenate(
                 [jnp.zeros((1, B.shape[1]), B.dtype), sol], axis=0)
         eps = 100 * jnp.finfo(w.dtype).eps
         fac = tridiag_ldl_auto(d[1:] + eps * jnp.max(d), e[1:])
 
         def Minv(V):
-            sol = tridiag_solve_factored_fast(fac, V[1:, :])
+            sol = tridiag_solve_factored(fac, V[1:, :])
             return jnp.concatenate([jnp.zeros((1, V.shape[1]), V.dtype), sol], axis=0)
 
         apply_A = lambda V: lap_apply_reduced(op, w, V)
@@ -470,11 +470,11 @@ class GreedyESP:
 
         Eager greedy (identical selection semantics to the reference's
         subset(), which lazy evaluation only accelerates, not changes):
-        each step is one (k,) @ (k, m) MXU product — the Woodbury column
+        each step is one (k,) @ (k, m) matmul — the Woodbury column
         algebra that costs O(k^2 m) scalar host flops total (measured
         173 s on city10000 at K=50% in the native lazy core; the flop
         count defeats laziness because overlapping chain intervals
-        invalidate the heap constantly) runs at MXU rate instead.
+        invalidate the heap constantly) runs at device matmul rate instead.
 
         U rows >= t are zero, so the full-height product equals the
         partial sum the recurrence needs — no dynamic shapes. Returns the
@@ -508,7 +508,7 @@ class GreedyESP:
             dtype = self.dtype
 
             def _minv(V):
-                sol = tridiag_solve_factored_fast(fac, V[1:, :])
+                sol = tridiag_solve_factored(fac, V[1:, :])
                 return jnp.concatenate(
                     [jnp.zeros((1, V.shape[1]), V.dtype), sol], axis=0)
 
@@ -636,7 +636,7 @@ class GreedyESP:
         # closed-form for chain-fixed graphs, from Z otherwise.
         from mac_tpu import native
 
-        # Device scan for large problems (one MXU product per selection);
+        # Device scan for large problems (one matmul per selection);
         # native C++ lazy core otherwise; pure-Python loop as last resort.
         Z = None
         order = self._select_scan_device(int(ks[-1]))

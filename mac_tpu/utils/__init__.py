@@ -10,7 +10,19 @@ from mac_tpu.utils.graphs import (
     set_incidence_vector_for_edge_inplace,
     get_edge_selection_as_binary_mask,
 )
-from mac_tpu.utils.conversions import nx_to_mac, mac_to_nx
+
+# networkx is needed only by the conversion helpers, not by the solve path:
+# import them on first use (PEP 562) so `import mac_tpu.solvers` works with
+# numpy, scipy and JAX alone.
+_LAZY = {"nx_to_mac", "mac_to_nx"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        from mac_tpu.utils import conversions
+
+        return getattr(conversions, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
     "Edge",

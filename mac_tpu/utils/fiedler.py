@@ -6,8 +6,8 @@ tolerance, and returns the 3-tuple (sigma[0], X[:, 0], X) so callers can
 warm-start subsequent solves.
 
 Reference method names 'tracemin_lu' / 'tracemin_cholesky' are accepted and
-dispatch to the TPU-native engine ('tracemin': preconditioned block inverse
-iteration — see mac_tpu.ops.lobpcg; there is no LU/Cholesky on TPU, inner
+dispatch to the device engine ('tracemin': preconditioned block inverse
+iteration — see mac_tpu.ops.lobpcg; instead of a sparse LU/Cholesky, inner
 CG with a tridiagonal-part solve owns their role). 'lobpcg' selects the
 LOBPCG variant; 'dense' forces the exact dense-eigh oracle.
 
@@ -39,7 +39,7 @@ from mac_tpu.ops.lobpcg import (
     tracemin_fiedler,
 )
 from mac_tpu.ops.cg import pcg_fixed
-from mac_tpu.ops.tridiag import tridiag_ldl_auto, tridiag_solve_factored_fast
+from mac_tpu.ops.tridiag import tridiag_ldl_auto, tridiag_solve_factored
 from mac_tpu.ops import precond as _precond
 from mac_tpu.ops import twogrid as _twogrid
 
@@ -54,8 +54,8 @@ def scipy_lam2(L) -> float:
     impartial quality referee used by the benchmark/probe scripts;
     independent of mac_tpu's own eigensolver. WARNING: shift-invert
     factorizes L; on large graphs with heavy loop-closure fill the splu
-    can take minutes (see CLAUDE.md) — bench scripts only call this on
-    the bundled datasets where it is known cheap."""
+    can take minutes — bench scripts only call this on the bundled
+    datasets where it is known cheap."""
     import scipy.sparse.linalg as spla
 
     vals = spla.eigsh(L.astype(np.float64), k=2, sigma=-1e-9, which="LM",
@@ -64,9 +64,11 @@ def scipy_lam2(L) -> float:
 
 
 def default_dtype():
-    """Backend-aware compute dtype: float32 on accelerators (bandwidth,
-    MXU), float64 on CPU (numerical-parity mode). x64 is always enabled
-    (mac_tpu/__init__.py) so the choice is explicit, not implicit."""
+    """Backend-aware compute dtype: float32 on accelerators (half the bytes
+    of the memory-bound applies; the spectral probe in MAC escalates
+    instances float32 cannot resolve), float64 on CPU (numerical-parity
+    mode). x64 is always enabled (mac_tpu/__init__.py) so the choice is
+    explicit, not implicit."""
     return jnp.float64 if jax.default_backend() == "cpu" else jnp.float32
 
 
@@ -149,14 +151,11 @@ def fiedler_pair_op(
     if apply_override is not None:
         apply_L = lambda V: apply_override(w, V)
     elif banded is not None:
-        # Block-banded MXU apply (RCM-ordered operators; see
+        # Block-banded matmul apply (RCM-ordered operators; see
         # mac_tpu.ops.banded). Exact f32 semantics via precision=HIGHEST.
         from mac_tpu.ops import banded as _banded
 
-        # Under a mesh the Pallas assembly kernel is disabled: XLA cannot
-        # partition the custom call across the 'graph'-sharded up tensor.
-        BD = _banded.assemble_bd(
-            banded, w, fused=False if banded_shardings is not None else None)
+        BD = _banded.assemble_bd(banded, w)
         if banded_shardings is not None:
             # Multi-chip: constrain the block-row tensors 'graph'-sharded;
             # XLA partitions the batched-matmul apply across devices.
@@ -173,7 +172,7 @@ def fiedler_pair_op(
 
     if BD is not None:
         # ||L||_inf = 2 max degree, read off BD's diagonal — the ELL-table
-        # route costs a ~1 ms (n, dmax) gather per weight update.
+        # route costs an (n, dmax) gather per weight update.
         lnorm = 2.0 * jnp.max(BD.deg)
     else:
         lnorm = lap_inf_norm(op, w)
@@ -208,7 +207,7 @@ def fiedler_pair_op(
         def Minv(B):
             # Restrict the tridiagonal solve to 1^perp so the shifted
             # constant mode is never amplified.
-            return center(tridiag_solve_factored_fast(fac, center(B)))
+            return center(tridiag_solve_factored(fac, center(B)))
 
     if method == "lobpcg":
         pc = lambda R: pcg_fixed(apply_shifted, R, Minv, iters=inner_iters)
@@ -248,7 +247,7 @@ def _normalized_fiedler(L, X, tol: float, maxiter: int):
     """Fiedler pair of the NORMALIZED Laplacian N = D^{-1/2} L D^{-1/2}.
 
     The reference's normalized branch is broken (undefined `L`,
-    mac/utils/cholesky.py:316); this is a working TPU-native version.
+    mac/utils/cholesky.py:316); this is a working matrix-free version.
     Approach: apply N matrix-free through the similarity transform
     (never materializing it), run the same TRACEMIN engine with the
     nullspace generalized to u = D^{1/2}1/||D^{1/2}1||, and precondition
@@ -349,7 +348,7 @@ def find_fiedler_pair(
 def tracemin_fiedler_cholesky(L, X=None, normalized=False, tol=1e-8):
     """Reference-name parity wrapper (mac/utils/cholesky.py:137-240): the
     reference's 'tracemin_cholesky' solver is a TRACEMIN iteration with
-    CHOLMOD inner solves; here every tracemin path runs the TPU-native
+    CHOLMOD inner solves; here every tracemin path runs the device
     preconditioned engine. `normalized=True` WORKS here (the reference's
     own normalized branch is broken — undefined `L`, cholesky.py:316):
     it solves on D^{-1/2} L D^{-1/2} via the similarity-transformed

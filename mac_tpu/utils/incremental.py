@@ -3,7 +3,7 @@
 Plays the role of the reference's `CholeskyFiedlerSolver`
 (mac/utils/cholesky.py:250-376), which maintains a CHOLMOD factor under
 rank-1 up/downdates so each `find_fiedler_pair` after an edge mutation is
-cheap. There is no sparse factor to update on TPU; instead:
+cheap. There is no sparse factor to update on the device; instead:
 
   * the edge *set* is fixed up front (all edges that may ever be active —
     static shapes), mutations toggle per-edge weights in O(1);

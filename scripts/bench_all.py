@@ -1,4 +1,4 @@
-"""Full benchmark table: mac_tpu on the TPU vs the reference's measured CPU
+"""Full benchmark table: mac_tpu on the default accelerator vs the reference's measured CPU
 numbers (scripts/baseline_reference.json), all six datasets. Inputs match
 (K = 50%, NaiveGreedy init, nearest rounding, cache on); each solver runs
 its own recommended operating point — the reference at its experiment
@@ -57,7 +57,7 @@ def run(name):
     ref = REF[name]
     rec = dict(
         dataset=name, n=n, m_cand=len(cands), k=k,
-        tpu_solve_s=round(med, 4), tpu_cold_s=round(cold, 1),
+        solve_s=round(med, 4), cold_s=round(cold, 1),
         ref_solve_s=ref["solve_s"],
         speedup=round(ref["solve_s"] / med, 2),
         lam2_unrounded=lam_unrounded,

@@ -1,5 +1,5 @@
 """Scalability benchmark: synthetic pose graphs beyond the bundled dataset
-sizes (chain + random loop closures), mac_tpu on TPU vs the reference
+sizes (chain + random loop closures), mac_tpu on the default accelerator vs the reference
 implementation (scipy/NetworkX tracemin_lu) on CPU, identical inputs.
 
 Usage: python scripts/bench_scale.py [n ...]    (default: 30000 100000)
@@ -21,7 +21,7 @@ def synthetic(n, seed=0, local=False):
     """Chain + random loop closures. local=False: spans up to n/4 (an
     expander-like regime with no narrow band -> the ELL path). local=True:
     spans <= 290 (spatially local revisits, the typical SLAM regime ->
-    RCM gives a narrow band and the block-banded MXU path engages)."""
+    RCM gives a narrow band and the block-banded matmul path engages)."""
     rng = np.random.RandomState(seed)
     fixed_idx = np.stack([np.arange(n - 1), np.arange(1, n)], 1).astype(np.int32)
     w_fixed = 0.5 + rng.rand(n - 1)
@@ -106,15 +106,15 @@ def main():
         if not ref_only:
             ours = run_ours(fixed_idx, w_fixed, cand_idx, w_cand, n, k, max_iters)
             print(json.dumps(dict(n=n, **ours)), flush=True)
-            rec.update(tpu_warm_s=ours["warm_s"],
-                       tpu_lam2=ours["lam2_unrounded"])
+            rec.update(ours_warm_s=ours["warm_s"],
+                       ours_lam2=ours["lam2_unrounded"])
             if match_iters is not None:
                 oq = run_ours(fixed_idx, w_fixed, cand_idx, w_cand, n, k,
                               match_iters)
                 print(json.dumps(dict(n=n, point=f"match{match_iters}",
                                       **oq)), flush=True)
-                rec.update(tpu_matched_s=oq["warm_s"],
-                           tpu_matched_lam2=oq["lam2_unrounded"],
+                rec.update(ours_matched_s=oq["warm_s"],
+                           ours_matched_lam2=oq["lam2_unrounded"],
                            matched_iters=match_iters)
         if not ours_only:
             ref = run_reference(fixed_idx, w_fixed, cand_idx, w_cand, n, k, max_iters)
@@ -142,18 +142,18 @@ def main():
     for rec in out:
         merged = prev.get(key(rec), {})
         merged.update(rec)
-        if "ref_s" in merged and "tpu_warm_s" in merged:
-            merged["speedup"] = round(merged["ref_s"] / merged["tpu_warm_s"], 2)
-            if "ref_lam2" in merged and "tpu_lam2" in merged:
+        if "ref_s" in merged and "ours_warm_s" in merged:
+            merged["speedup"] = round(merged["ref_s"] / merged["ours_warm_s"], 2)
+            if "ref_lam2" in merged and "ours_lam2" in merged:
                 merged["quality_gap_rel"] = (
-                    (merged["tpu_lam2"] - merged["ref_lam2"])
+                    (merged["ours_lam2"] - merged["ref_lam2"])
                     / merged["ref_lam2"])
-        if "ref_s" in merged and "tpu_matched_s" in merged:
+        if "ref_s" in merged and "ours_matched_s" in merged:
             merged["speedup_matched"] = round(
-                merged["ref_s"] / merged["tpu_matched_s"], 2)
-            if "ref_lam2" in merged and "tpu_matched_lam2" in merged:
+                merged["ref_s"] / merged["ours_matched_s"], 2)
+            if "ref_lam2" in merged and "ours_matched_lam2" in merged:
                 merged["matched_gap_rel"] = (
-                    (merged["tpu_matched_lam2"] - merged["ref_lam2"])
+                    (merged["ours_matched_lam2"] - merged["ref_lam2"])
                     / merged["ref_lam2"])
         prev[key(rec)] = merged
     path.write_text(json.dumps(

@@ -1,4 +1,4 @@
-"""Measure the block-banded MXU path on city10000 (bench protocol).
+"""Measure the block-banded matmul path on city10000 (bench protocol).
 
 Reports warm solve time, FW/Fiedler iteration counts, and lambda parity
 for a few (inner_iters, maxiter, tol, rel_tol) configs.

@@ -1,4 +1,4 @@
-"""Tests for the block-banded MXU Laplacian formulation (mac_tpu.ops.banded).
+"""Tests for the block-banded Laplacian formulation (mac_tpu.ops.banded).
 
 Oracle strategy: the ELL difference-form apply (itself validated against
 networkx/scipy in tests/utils) and dense eigh.
@@ -57,8 +57,18 @@ def test_build_banded_rejects_expanders():
     assert build_banded(inv[idx], n) is None or bw <= 640
 
 
-def test_assemble_matches_dense_blocks():
-    idx, w, n = _pose_graph()
+@pytest.mark.parametrize("n,n_loops,span,seed", [
+    (700, 260, 40, 3),     # base pose graph
+    (560, 80, 6, 11),      # half = 1 (single upper diagonal), tiny du
+    (700, 420, 70, 11),    # wider band, larger du
+    (1100, 250, 120, 11),  # n not a multiple of BS, half >= 3
+    (1500, 1200, 25, 3),   # heavy-tailed upper degrees (city10000-like)
+])
+def test_assemble_matches_dense_blocks(n, n_loops, span, seed):
+    """The sheared assembly reproduces the dense Laplacian blocks across
+    unroll regimes: number of upper block diagonals (half) and of
+    compare-accumulate passes (du)."""
+    idx, w, n = _pose_graph(n=n, n_loops=n_loops, span=span, seed=seed)
     perm, inv, bw = rcm_order(idx, n)
     ridx = inv[idx]
     bop = build_banded(ridx, n, dtype=jnp.float64)
@@ -120,105 +130,37 @@ def test_banded_apply_f32_stable_on_smooth_vectors():
     assert rel < 5e-6, rel
 
 
-def test_assemble_fused_kernel_matches_xla():
-    """The Pallas assembly kernel (interpret mode on CPU) must reproduce
-    the XLA sheared path bit-for-bit — both are sums of disjoint slot
-    contributions in slot order."""
-    from mac_tpu.ops.banded import _assemble_ut_xla
-    from mac_tpu.ops.pallas.assemble_kernel import assemble_ut_fused
-
-    idx, w, n = _pose_graph(n=700, n_loops=260)
-    perm, inv, bw = rcm_order(idx, n)
-    bop = build_banded(inv[idx].astype(np.int32), n, dtype=jnp.float32)
-    assert bop is not None
-    w32 = jnp.asarray(w, jnp.float32)
-    w_pad = jnp.concatenate([-w32, jnp.zeros((1,), jnp.float32)])
-    wu = w_pad[bop.ueid_tbl]
-    ref = np.asarray(_assemble_ut_xla(bop, wu))
-    got = np.asarray(assemble_ut_fused(bop.dcol_tbl, wu, half=bop.half,
-                                       nb=bop.nb, interpret=True))
-    assert got.shape == ref.shape
-    np.testing.assert_array_equal(got, ref)
-
-
-@pytest.mark.parametrize("n,n_loops,span", [
-    (560, 80, 6),      # half = 1 (single upper diagonal), tiny du
-    (700, 420, 70),    # wider band / larger du than the base test
-    (1100, 250, 120),  # n not a multiple of BS, half >= 3
-])
-def test_assemble_fused_kernel_matches_xla_shapes(n, n_loops, span):
-    """Parity across unroll regimes: different half (tile-write count)
-    and du (compare-accumulate pass count) configurations must all
-    reproduce the XLA sheared assembly bit-for-bit."""
-    from mac_tpu.ops.banded import _assemble_ut_xla
-    from mac_tpu.ops.pallas.assemble_kernel import assemble_ut_fused
-
-    idx, w, n = _pose_graph(n=n, n_loops=n_loops, span=span, seed=11)
-    perm, inv, bw = rcm_order(idx, n)
-    bop = build_banded(inv[idx].astype(np.int32), n, dtype=jnp.float32)
-    assert bop is not None
-    w32 = jnp.asarray(w, jnp.float32)
-    w_pad = jnp.concatenate([-w32, jnp.zeros((1,), jnp.float32)])
-    wu = w_pad[bop.ueid_tbl]
-    ref = np.asarray(_assemble_ut_xla(bop, wu))
-    got = np.asarray(assemble_ut_fused(bop.dcol_tbl, wu, half=bop.half,
-                                       nb=bop.nb, interpret=True))
-    assert got.shape == ref.shape
-    np.testing.assert_array_equal(got, ref)
-
-
-def test_assemble_fused_overflow_kernel_matches_xla():
-    """The overflow-split kernel (round 5: dense slots gathered, tail
-    applied from per-block SMEM tables) must reproduce the XLA all-slots
-    assembly. Equality is to f32 addend-reorder tolerance: overflow nodes
-    accumulate dense slots first, then overflow entries."""
-    from mac_tpu.ops.banded import OV_CAP, _assemble_ut_xla
-    from mac_tpu.ops.pallas.assemble_kernel import assemble_ut_fused_ov
-
-    # Heavy-tailed upper degrees (city10000's regime): a dense loop-
-    # closure load makes du large while the tail stays thin — measured
-    # du=7 with slot occupancy [1499, 851, 283, 56, 6, 3, 1], splitting
-    # at du_dense=4 with 4 overflow rows.
-    idx, w, n = _pose_graph(n=1500, n_loops=1200, span=25, seed=3)
-    perm, inv, bw = rcm_order(idx, n)
-    bop = build_banded(inv[idx].astype(np.int32), n, dtype=jnp.float32)
-    assert bop is not None
-    assert bop.ov_rows > 0, "test graph must trigger the overflow split"
-    assert bop.ov_rows <= OV_CAP
-    assert bop.du_dense < bop.ueid_tbl.shape[0]
-    w32 = jnp.asarray(w, jnp.float32)
-    w_pad = jnp.concatenate([-w32, jnp.zeros((1,), jnp.float32)])
-    ref = np.asarray(_assemble_ut_xla(bop, w_pad[bop.ueid_tbl]))
-    got = np.asarray(assemble_ut_fused_ov(
-        bop.dcol_tbl[:bop.du_dense], w_pad[bop.ueid_tbl[:bop.du_dense]],
-        bop.ocol_tbl, bop.olane_tbl, w_pad[bop.oeid_tbl],
-        half=bop.half, nb=bop.nb, interpret=True))
-    assert got.shape == ref.shape
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
-    # And end-to-end through assemble_bd's fused dispatch (interpret is
-    # kernel-level only, so exercise the op via the XLA-parity identity
-    # of the degree reduction instead).
-    from mac_tpu.ops.banded import assemble_bd
-    bd_x = assemble_bd(bop, w32, fused=False)
-    np.testing.assert_allclose(np.asarray(bd_x.ut), ref, rtol=0, atol=0)
-
-
-def test_assemble_fused_vmap_falls_back_to_xla():
-    """vmapping the fused assembly op (budget sweeps) must route through
-    the XLA batch rule and match per-lane XLA assembly."""
-    from mac_tpu.ops.banded import _assemble_ut_fused_op, _assemble_ut_xla
-
+def test_assemble_bd_vmaps_per_lane():
+    """Budget sweeps vmap the assembly over weight vectors: each lane must
+    equal its own unbatched assembly."""
     idx, w, n = _pose_graph(n=700, n_loops=120)
     perm, inv, bw = rcm_order(idx, n)
     bop = build_banded(inv[idx].astype(np.int32), n, dtype=jnp.float32)
     assert bop is not None
     rng = np.random.RandomState(5)
     ws = jnp.asarray(0.5 + rng.rand(3, len(w)), jnp.float32)
-    w_pad = jnp.concatenate([-ws, jnp.zeros((3, 1), jnp.float32)], axis=1)
-    got = jax.vmap(lambda wp: _assemble_ut_fused_op(bop, wp))(w_pad)
-    ref = jnp.stack([_assemble_ut_xla(bop, w_pad[i][bop.ueid_tbl])
-                     for i in range(3)])
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+    got = jax.vmap(lambda w_: assemble_bd(bop, w_))(ws)
+    for i in range(3):
+        ref = assemble_bd(bop, ws[i])
+        np.testing.assert_array_equal(np.asarray(got.ut[i]),
+                                      np.asarray(ref.ut))
+        np.testing.assert_array_equal(np.asarray(got.deg[i]),
+                                      np.asarray(ref.deg))
+
+
+@pytest.mark.parametrize("precision,tol_key", [
+    (jax.lax.Precision.HIGHEST, "banded_apply_highest"),
+    (jax.lax.Precision.DEFAULT, "banded_apply_default"),
+])
+def test_banded_apply_f32_parity_vs_f64_reference(precision, tol_key):
+    """The float32 apply (the solver's accelerator dtype) at both matmul
+    precisions against a float64 sparse product — the same check the chip
+    smoke test runs at city10000 widths (mac_tpu.ops.parity)."""
+    from mac_tpu.ops import parity
+
+    idx, w = parity.chain_pose_graph(1500, 700, 40, seed=1)
+    err = parity.check_banded_apply(idx, w, 1500, q=4, precision=precision)
+    assert err <= parity.TOL[tol_key], err
 
 
 @pytest.mark.parametrize("smoother,kind", [

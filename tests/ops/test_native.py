@@ -78,3 +78,25 @@ def test_native_esp_core_matches_python():
         U[t, :] = row
         q = q - row * row
     np.testing.assert_array_equal(np.asarray(order), np.asarray(chosen))
+
+
+def test_lib_runs_make_on_first_use_even_when_built(monkeypatch):
+    """A library left on disk by another machine must not be loaded as is:
+    the first lib() call in a process always runs `make -C native` (a
+    no-op when up to date), then loads."""
+    ran = []
+    real_run = native.subprocess.run
+
+    def recording_run(cmd, *a, **kw):
+        ran.append(list(cmd))
+        return real_run(cmd, *a, **kw)
+
+    monkeypatch.setattr(native.subprocess, "run", recording_run)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.delenv("MAC_TPU_NO_NATIVE", raising=False)
+    assert native._SO.exists() or native.build()
+    ran.clear()
+    lib = native.lib()
+    assert ran and ran[0][:2] == ["make", "-C"]
+    assert lib is not None

@@ -111,34 +111,11 @@ def test_tridiag_ldl_blocked_preconditioner_quality():
     assert rel < 0.2, rel
 
 
-def test_blocked_fused_kernel_matches_scan_solve():
-    """The segment-decoupled Pallas solve (interpret mode) must match the
-    associative-scan solve for a blocked factor."""
-    import numpy as np
-    import jax.numpy as jnp
-    from mac_tpu.ops.tridiag import tridiag_ldl_blocked, tridiag_solve_factored
-    from mac_tpu.ops.pallas.tridiag_kernel import tridiag_solve_fused_blocked
-
-    rng = np.random.RandomState(1)
-    n = 2500
-    e = -(0.5 + rng.rand(n - 1))
-    d = 0.1 + rng.rand(n) - np.concatenate([[0], e]) - np.concatenate([e, [0]])
-    f = tridiag_ldl_blocked(jnp.asarray(d, jnp.float32),
-                            jnp.asarray(e, jnp.float32), block=1024)
-    B = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
-    ref = tridiag_solve_factored(f, B)
-    got = tridiag_solve_fused_blocked(
-        f.dp.astype(jnp.float32), f.l.astype(jnp.float32), B,
-        block=1024, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=2e-4, atol=2e-4)
-
-
 def test_tridiag_factor_segment_metadata():
     """Factors record how they were produced (seg = None for exact,
     the block size for segment-decoupled), the metadata survives pytree
-    flattening, and the fast-solve dispatcher refuses to route an exact
-    factor through the segment-decoupling kernel (ADVICE r2 #3)."""
+    flattening and jit, and the solve is the same under jit as eagerly
+    for both factor kinds."""
     import jax
     import jax.numpy as jnp
     from mac_tpu.ops import tridiag as td
@@ -160,35 +137,26 @@ def test_tridiag_factor_segment_metadata():
     _, treedef_exact = jax.tree_util.tree_flatten(f_exact)
     assert treedef != treedef_exact
 
-    # The fast path must agree with the reference scan solve for both
-    # factor kinds (on any backend).
+    # The factor (with its static seg) passes through jit unchanged.
     B = jnp.asarray(rng.normal(size=(n, 3)))
     for f in (f_exact, f_blk):
         ref = td.tridiag_solve_factored(f, B)
-        got = td.tridiag_solve_factored_fast(f, B)
+        got = jax.jit(td.tridiag_solve_factored)(f, B)
         np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                    rtol=1e-10, atol=1e-12)
 
 
-def test_blocked_fused_kernel_gridded_rows():
-    """rows = q * nbl > the 256-row tile: the row-gridded kernel path
-    (VMEM-bounded for any n — the round-4 fix that re-enables the fused
-    chain solve at n >= 1e5) must still match the scan solve."""
-    import numpy as np
-    import jax.numpy as jnp
-    from mac_tpu.ops.tridiag import tridiag_ldl_blocked, tridiag_solve_factored
-    from mac_tpu.ops.pallas.tridiag_kernel import tridiag_solve_fused_blocked
+@pytest.mark.parametrize("n,q,block", [
+    (3000, 4, None),      # exact factor
+    (10000, 1, None),     # exact factor, single right-hand side
+    (5000, 4, 128),       # blocked factor at the chain smoother's segment
+    (20000, 8, 1024),     # blocked factor, wide block
+])
+def test_scan_chain_solve_matches_scipy_banded_f64(n, q, block):
+    """The float32 scan solve against scipy.linalg.solve_banded in float64
+    on the matrix the factor represents — the check the chip smoke test
+    runs at city10000 widths (mac_tpu.ops.parity)."""
+    from mac_tpu.ops import parity
 
-    rng = np.random.RandomState(7)
-    n = 40000  # nbl=40, q=8 -> 320 rows > ROWTILE=256 -> grid of 2
-    e = -(0.5 + rng.rand(n - 1))
-    d = 0.1 + rng.rand(n) - np.concatenate([[0], e]) - np.concatenate([e, [0]])
-    f = tridiag_ldl_blocked(jnp.asarray(d, jnp.float32),
-                            jnp.asarray(e, jnp.float32), block=1024)
-    B = jnp.asarray(rng.normal(size=(n, 8)), jnp.float32)
-    ref = tridiag_solve_factored(f, B)
-    got = tridiag_solve_fused_blocked(
-        f.dp.astype(jnp.float32), f.l.astype(jnp.float32), B,
-        block=1024, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=2e-4, atol=2e-4)
+    err = parity.check_chain_solve(n, q=q, block=block, seed=n % 7)
+    assert err <= parity.TOL["chain_solve"], err

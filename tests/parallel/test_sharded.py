@@ -199,7 +199,7 @@ def test_mac_edge_sharded_apply_path(mesh):
 
 
 def test_banded_path_composes_with_mesh(mesh):
-    """The block-banded MXU path no longer refuses a mesh: BD tensors are
+    """The block-banded matmul path no longer refuses a mesh: BD tensors are
     'graph'-sharded via constraints and the solve matches meshless banded
     (float32, forced banded on CPU)."""
     n = 640

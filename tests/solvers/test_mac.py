@@ -371,52 +371,6 @@ def test_host_backend_parity():
     assert f_d <= bh + 1e-6 or f_d <= bd + 1e-6
 
 
-def test_fused_assembly_failure_falls_back_to_xla_path():
-    """If the first jitted banded-f32 solve raises (the fused Pallas
-    assembly kernel failing to Mosaic-compile on a new shape regime),
-    solve() must flip the module safety valve and retry on the XLA
-    assembly path instead of propagating."""
-    import jax.numpy as jnp
-    from mac_tpu.ops import banded as banded_mod
-    from mac_tpu.utils.graphs import Edge
-
-    rng = np.random.RandomState(3)
-    n = 600
-    fixed = [Edge(i, i + 1, 0.5 + rng.rand()) for i in range(n - 1)]
-    cands = []
-    seen = set()
-    while len(cands) < 150:
-        i = rng.randint(0, n - 30)
-        j = i + 2 + rng.randint(25)
-        if (i, j) not in seen:
-            seen.add((i, j))
-            cands.append(Edge(i, j, 0.5 + rng.rand()))
-    mac = MAC(fixed, cands, n, use_banded=True, dtype=jnp.float32,
-              fiedler_maxiter=8, fiedler_inner_iters=4)
-    assert mac._banded is not None
-
-    real_fw = mac._fw_jit
-    calls = {"n": 0}
-
-    def flaky_fw(*args, **kwargs):
-        calls["n"] += 1
-        if calls["n"] == 1:
-            raise RuntimeError("simulated Mosaic compile failure")
-        return real_fw(*args, **kwargs)
-
-    assert banded_mod.FUSED_ASSEMBLY_ENABLED
-    mac._fw_jit = flaky_fw
-    try:
-        with pytest.warns(UserWarning, match="fused Pallas assembly"):
-            rounded, unrounded, upper = mac.solve(40, max_iters=3)
-        assert calls["n"] == 2
-        assert not banded_mod.FUSED_ASSEMBLY_ENABLED
-        assert rounded.sum() == 40
-    finally:
-        banded_mod.FUSED_ASSEMBLY_ENABLED = True
-        mac._fw_jit = real_fw
-
-
 def test_host_backend_auto_routes_tiny_gap_on_f64_sessions():
     """On a float64 (CPU) session the ctor probe still runs for small
     graphs and routes tiny-gap instances (the kitti/ais2klinik regime)
@@ -445,39 +399,6 @@ def test_host_backend_auto_routes_tiny_gap_on_f64_sessions():
                graph.number_of_nodes())
     assert not mac2._tiny_gap
     assert mac2.fiedler_backend == "device"
-
-
-def test_fused_assembly_valve_reraises_unrelated_failures():
-    """The safety valve must only catch Pallas/Mosaic-looking failures:
-    an unrelated exception propagates unchanged, without flipping the
-    module flag or clearing JIT caches (review finding, round 3)."""
-    import jax.numpy as jnp
-    from mac_tpu.ops import banded as banded_mod
-    from mac_tpu.utils.graphs import Edge
-
-    rng = np.random.RandomState(3)
-    n = 600
-    fixed = [Edge(i, i + 1, 0.5 + rng.rand()) for i in range(n - 1)]
-    cands = [Edge(i, i + 5, 1.0) for i in range(0, 500, 4)]
-    mac = MAC(fixed, cands, n, use_banded=True, dtype=jnp.float32,
-              fiedler_maxiter=8, fiedler_inner_iters=4)
-
-    real_fw = mac._fw_jit
-    calls = {"n": 0}
-
-    def broken_fw(*args, **kwargs):
-        calls["n"] += 1
-        raise TypeError("some unrelated user/pytree error")
-
-    assert banded_mod.FUSED_ASSEMBLY_ENABLED
-    mac._fw_jit = broken_fw
-    try:
-        with pytest.raises(TypeError, match="unrelated"):
-            mac.solve(40, max_iters=3)
-        assert calls["n"] == 1  # no retry
-        assert banded_mod.FUSED_ASSEMBLY_ENABLED  # flag untouched
-    finally:
-        mac._fw_jit = real_fw
 
 
 def test_dense_fiedler_method_keeps_banded_pytree_carry():
@@ -827,3 +748,81 @@ def test_chunked_dispatch_with_cold_presolve_equivalence():
     assert np.isclose(f0, f1, rtol=1e-8, atol=1e-12)
     assert np.array_equal(np.asarray(r0), np.asarray(r1))
     assert np.isclose(b0, b1, rtol=1e-8)
+
+
+def _banded_pose_graph(n=3000, n_loops=1500, span=300, seed=4):
+    """Chain + loop closures of span <= 300: band-narrow after RCM and
+    well-conditioned enough that the spectral probe keeps float32."""
+    from mac_tpu.ops.parity import chain_pose_graph
+    from mac_tpu.utils.graphs import Edge
+
+    idx, w = chain_pose_graph(n, n_loops, span, seed=seed)
+    fixed = [Edge(int(i), int(j), float(x))
+             for (i, j), x in zip(idx, w) if j - i == 1]
+    cands = [Edge(int(i), int(j), float(x))
+             for (i, j), x in zip(idx, w) if j - i > 1]
+    return fixed, cands, n
+
+
+def test_gpu_session_takes_banded_route_in_one_program(monkeypatch):
+    """On an accelerator session (backend reported as 'gpu') the default
+    constructor takes the banded float32 device route, and solve() runs
+    the whole Frank-Wolfe loop as ONE device program: no host-chunked
+    dispatch (no init-carry or resume calls)."""
+    import jax
+    import jax.numpy as jnp
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    fixed, cands, n = _banded_pose_graph()
+    mac = MAC(fixed, cands, n)
+    assert mac._banded is not None
+    assert mac.dtype == jnp.float32
+    assert mac.fiedler_backend == "device"
+    assert mac.fw_dispatch_chunk is None
+    calls = []
+    real = mac._fw_jit
+
+    def recording(*a, **kw):
+        calls.append(kw)
+        return real(*a, **kw)
+
+    mac._fw_jit = recording
+    k = len(cands) // 2
+    rounded, unrounded, upper = mac.solve(k, max_iters=3)
+    assert len(calls) == 1
+    assert not calls[0].get("init_carry_only")
+    assert calls[0].get("fw_carry0") is None
+    assert rounded.sum() == k and np.isfinite(upper)
+
+
+def test_gpu_session_float64_instances_stay_on_default_device(monkeypatch):
+    """float64 instances on an accelerator session are no longer pinned to
+    the CPU backend: arrays live on the process default device, and the
+    router still sends tiny-gap and small instances to the host engine and
+    disconnected ones to the device engine."""
+    import jax
+    import jax.numpy as jnp
+    from mac_tpu.utils.graphs import Edge
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    default = jax.devices()[0]
+    # Tiny gap: stiff chain + weak loops -> float64, host engine.
+    n = 3000
+    fixed = [Edge(i, i + 1, 1e6) for i in range(n - 1)]
+    cands = [Edge(0, n // 2, 1e6), Edge(5, n // 2 + 7, 1e6),
+             Edge(11, n - 3, 1e6)]
+    mac = MAC(fixed, cands, n)
+    assert mac.dtype == jnp.float64 and mac._tiny_gap
+    assert mac.fiedler_backend == "host"
+    assert not hasattr(mac, "_device")
+    assert mac._w_cand.devices() == {default}
+    # Disconnected: float64 on the device engine, default device.
+    half = 600
+    fixed = ([Edge(i, i + 1, 1.0) for i in range(half - 1)]
+             + [Edge(i, i + 1, 1.0) for i in range(half, 2 * half - 1)])
+    cands = [Edge(0, 5, 1.0), Edge(half, half + 9, 1.0), Edge(2, 30, 1.0)]
+    mac = MAC(fixed, cands, 2 * half)
+    assert mac.dtype == jnp.float64
+    assert mac.fiedler_backend == "device"
+    assert mac._X0.devices() == {default}
+    assert jax.config.jax_default_device is None
