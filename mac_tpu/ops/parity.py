@@ -30,7 +30,9 @@ TOL = {
     # Scan solve in float32 against a float64 direct solve.
     "chain_solve": 2e-4,
     # Assembly copies f32 weights into place and sums the degrees in f32:
-    # error relative to the largest degree is summation-order rounding.
+    # the error, taken relative to the largest degree (not absolute, so
+    # that it does not scale with the weights), is summation-order
+    # rounding.
     "assembly": 1e-6,
 }
 
@@ -46,6 +48,13 @@ def chain_pose_graph(n: int, n_loops: int, span: int,
     loops = np.unique(np.stack([lo, hi], 1)[hi - lo > 1], axis=0)
     idx = np.concatenate([chain, loops]).astype(np.int64)
     return idx, 0.5 + rng.rand(len(idx))
+
+
+def seeded_weights(m: int, seed: int = 0) -> np.ndarray:
+    """m edge weights in [0.5, 1.5) from `seed`. Unlike a dataset whose
+    weights are all equal (city10000's are all 100), their float32 sums
+    depend on the summation order."""
+    return 0.5 + np.random.RandomState(seed).rand(m)
 
 
 def _relabeled(idx, n):

@@ -86,31 +86,25 @@ def make_twogrid_precond(
     Lc32, _ = jax.lax.scan(
         _chunk, jnp.zeros((nc, nc), jnp.float32),
         (ci_p.reshape(-1, CH), cj_p.reshape(-1, CH), w_p.reshape(-1, CH)))
-    Lc = Lc32.astype(jnp.float64)
-    # Rank-one constant-mode shift makes Lc SPD (same trick as the
-    # eigensolver); inverse computed once, in float64, applied in dtype.
+    # In float64, rebuild the diagonal as minus the off-diagonal row sums:
+    # Lc is then exactly (up to f64 rounding) the Laplacian of its
+    # f32-rounded coarse weights, so it is positive semidefinite; the f32
+    # diagonal sums could leave it indefinite by ~eps_f32 * ||Lc||.
+    eye = jnp.eye(nc, dtype=jnp.float64)
+    off = Lc32.astype(jnp.float64) * (1.0 - eye)
+    Lc = off - jnp.diag(jnp.sum(off, axis=1))
+    # Rank-one constant-mode shift (same trick as the eigensolver) removes
+    # the zero eigenvalue of the constant vector. A graph with several
+    # connected components keeps one more zero eigenvalue per extra
+    # component; the diagonal term, far below any nonzero coarse
+    # eigenvalue of a connected graph, keeps the Cholesky defined there.
     cshift = 2.0 * jnp.max(jnp.diag(Lc)) + 1.0
-    Lc_reg = Lc + (cshift / nc) * jnp.ones((nc, nc), dtype=jnp.float64)
-
-    def _chol_inverse(A):
-        Rc = jnp.linalg.cholesky(A, upper=True)
-        Rc_inv = jax.scipy.linalg.solve_triangular(
-            Rc, jnp.eye(nc, dtype=jnp.float64), lower=False
-        )
-        return Rc_inv @ Rc_inv.T
-
-    # The constant shift removes only ONE zero eigenvalue. On a graph
-    # with several connected components Lc keeps a zero eigenvalue per
-    # extra component, and the f32-accumulated assembly can round it
-    # negative: the Cholesky then returns NaN and poisons every solve.
-    # Only in that case, retry with a 1% diagonal inflation (harmless in
-    # a preconditioner); connected graphs keep the exact coarse inverse.
-    Lc_inv = _chol_inverse(Lc_reg)
-    jit_c = 1e-2 * jnp.trace(Lc_reg) / nc
-    Lc_inv = jax.lax.cond(
-        jnp.all(jnp.isfinite(Lc_inv)), lambda _: Lc_inv,
-        lambda _: _chol_inverse(Lc_reg + jit_c * jnp.eye(nc, dtype=jnp.float64)),
-        None).astype(dtype)
+    Lc_reg = (Lc + (cshift / nc) * jnp.ones((nc, nc), dtype=jnp.float64)
+              + (1e-10 * cshift) * eye)
+    # Inverse computed once, in float64, applied in dtype.
+    Rc = jnp.linalg.cholesky(Lc_reg, upper=True)
+    Rc_inv = jax.scipy.linalg.solve_triangular(Rc, eye, lower=False)
+    Lc_inv = (Rc_inv @ Rc_inv.T).astype(dtype)
 
     pad = nc * s - n
 

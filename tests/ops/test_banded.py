@@ -163,6 +163,17 @@ def test_banded_apply_f32_parity_vs_f64_reference(precision, tol_key):
     assert err <= parity.TOL[tol_key], err
 
 
+def test_assembly_parity_seeded_weights_vs_f64_reference():
+    """The float32 sheared assembly against blocks scattered in float64,
+    on weights whose sums are inexact in float32 (chip smoke phase 5)."""
+    from mac_tpu.ops import parity
+
+    idx, _ = parity.chain_pose_graph(1500, 700, 40, seed=2)
+    w = parity.seeded_weights(len(idx), seed=3)
+    err = parity.check_assembly(idx, w, 1500)
+    assert 0.0 < err <= parity.TOL["assembly"], err
+
+
 @pytest.mark.parametrize("smoother,kind", [
     ("chain", "mult"), ("bjacobi", "mult"), ("chain", "additive"),
 ])

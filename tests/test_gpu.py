@@ -57,8 +57,10 @@ def test_banded_apply_parity_city_width(gpu, city, precision, tol_key):
 def test_assembly_parity_city_width(gpu, city):
     from mac_tpu.ops import parity
 
-    idx, w, n = _arrays(city)
-    err = parity.check_assembly(idx, w, n)
+    # city10000's own weights are all equal, so every float32 sum would be
+    # exact; seeded weights on its topology exercise the summation order.
+    idx, _, n = _arrays(city)
+    err = parity.check_assembly(idx, parity.seeded_weights(len(idx)), n)
     assert err <= parity.TOL["assembly"], err
 
 
